@@ -1,13 +1,12 @@
-"""bp_osd_tpu — a TPU-native BP+OSD quantum LDPC decoding framework.
+"""bp_osd_tpu — a batched BP+OSD quantum LDPC decoding framework for GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability surface of
-``quantumgizmos/bp_osd`` (reference mounted at ``/root/reference``): CSS /
-stabilizer / hypergraph-product code construction, GF(2) linear algebra,
-batched belief-propagation decoding (product-sum and min-sum), OSD
-post-processing (osd0 / osd_e / osd_cs) and a Monte-Carlo logical-error-rate
-simulation harness — treating syndrome decoding as a batched sparse
-message-passing signal chain sharded over TPU meshes rather than a
-one-syndrome-at-a-time native object.
+A from-scratch JAX/XLA re-design of the capability surface of
+``quantumgizmos/bp_osd``: CSS / stabilizer / hypergraph-product code
+construction, GF(2) linear algebra, batched belief-propagation decoding
+(product-sum and min-sum), OSD post-processing (osd0 / osd_e / osd_cs) and
+a Monte-Carlo logical-error-rate simulation harness — treating syndrome
+decoding as a batched sparse message-passing signal chain sharded over a
+device mesh rather than a one-syndrome-at-a-time native object.
 
 Drop-in import surface (reference ``src/bposd/__init__.py:1`` re-exports
 ``bposd_decoder`` from ``ldpc``):

@@ -1,6 +1,6 @@
 """Classical binary code generators.
 
-TPU-framework replacement for ``ldpc.codes`` as consumed by the reference
+Framework replacement for ``ldpc.codes`` as consumed by the reference
 (``rep_code`` at reference ``tests/test_hgp.py:10``, ``hamming_code`` at
 reference ``tests/test_css.py:9``).  These are tiny host-side constructors;
 they feed the hypergraph-product construction and the test-suite.

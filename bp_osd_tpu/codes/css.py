@@ -1,6 +1,6 @@
 """CSS (Calderbank-Shor-Steane) quantum code construction and validation.
 
-TPU-framework counterpart of the reference ``css_code`` class (reference
+Framework counterpart of the reference ``css_code`` class (reference
 ``src/bposd/css.py:8-191``).  Public surface kept drop-in compatible:
 ``hx hz lx lz N K D L Q``, ``compute_dimension``, ``compute_logicals``,
 ``compute_code_distance``, ``to_stab_code``, ``h``/``l`` block properties,

@@ -1,6 +1,6 @@
 """Hypergraph-product (HGP) quantum LDPC code construction.
 
-TPU-framework counterpart of the reference ``hgp``/``hgp_single`` classes
+Framework counterpart of the reference ``hgp``/``hgp_single`` classes
 (reference ``src/bposd/hgp.py:8-94``).  Given classical seed parity-check
 matrices ``h1 (m1 x n1)`` and ``h2 (m2 x n2)``::
 

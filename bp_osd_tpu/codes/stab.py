@@ -1,6 +1,6 @@
 """General (non-CSS) stabilizer codes in binary-symplectic form.
 
-TPU-framework counterpart of the reference ``stab_code`` class (reference
+Framework counterpart of the reference ``stab_code`` class (reference
 ``src/bposd/stab.py:23-165``).  A code on N qubits is given by
 ``hx``/``hz`` halves of the symplectic check matrix ``[hx | hz]``; logical
 operators come from the same kernel-minus-image pivot trick as the CSS case,

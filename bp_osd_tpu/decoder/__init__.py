@@ -1,4 +1,4 @@
-"""Batched TPU-native BP+OSD decoding (the hot path of the framework)."""
+"""Batched BP+OSD decoding under XLA (the hot path of the framework)."""
 
 from .bp import BPResult, bp_decode, llr_from_channel
 from .bposd import BpDecoder, BpOsdDecoder, bp_decoder, bposd_decoder

@@ -1,6 +1,6 @@
 """Batched belief-propagation syndrome decoding over a Tanner graph.
 
-TPU-native re-design of the reference's native BP engine (interface contract
+Batched XLA re-design of the reference's native BP engine (interface contract
 at reference ``README.md:184`` and ``css_decode_sim.py:444-463``): instead of
 one mutable decoder object processing one syndrome per call, decoding is a
 pure function ``(syndromes [B, m], llr0 [B, n]) -> BPResult`` compiled once
@@ -74,18 +74,28 @@ class BPResult(NamedTuple):
     iterations: jnp.ndarray  # [B] int32 iteration of first convergence (or last)
 
 
-# finite +inf stand-in (friendlier to the TPU AOT compiler); python float —
-# a module-level jnp scalar would initialize the XLA backend at import time,
+# finite +inf stand-in (keeps min-sum arithmetic free of inf - inf); python
+# float — a module-level jnp scalar would initialize the XLA backend at import time,
 # which breaks jax.distributed.initialize() ordering on multi-host
 _BIG = 1e30
+
+
+def adaptive_alpha(it):
+    """The variable min-sum scaling factor ``1 - 2^-it``, exactly.
+
+    ``2^-it`` is built from its bit pattern: ``jnp.exp2`` lowers to
+    ``exp(x ln 2)``, which is not exact and rounds differently on each
+    device.  For ``it > 24`` the result is 1.0 either way.
+    """
+    exponent = 127 - jnp.minimum(jnp.asarray(it, jnp.int32), 126)
+    return 1.0 - jax.lax.bitcast_convert_type(exponent << 23, jnp.float32)
 
 
 def _check_update_min_sum(v2c, chk_mask, syn_sign, alpha):
     """Scaled min-sum check-node update with self-exclusion via min1/min2.
 
     Sign products are computed as integer parities of negative-message
-    counts and the argmin mask as an iota comparison — pure VPU-friendly
-    primitives.
+    counts and the argmin mask as an iota comparison.
     """
     wr = v2c.shape[-1]
     neg = ((v2c < 0) & chk_mask).astype(jnp.int32)
@@ -150,7 +160,6 @@ def bp_decode(
     chk_var = jnp.asarray(graph.chk_var)
     chk_mask = jnp.asarray(graph.chk_mask)
     var_edge = jnp.asarray(graph.var_edge)
-    var_mask = jnp.asarray(graph.var_mask)
 
     syndromes = jnp.asarray(syndromes)
     if syndromes.ndim == 1:
@@ -165,63 +174,57 @@ def bp_decode(
     fixed_alpha = float(ms_scaling_factor)
     adaptive = method == "minimum_sum" and fixed_alpha == 0.0
 
+    def per_variable_total(c2v):
+        """``llr0`` plus each variable's incoming check messages, summed in
+        one fixed order, ``((llr0 + c_0) + c_1) + ...`` with checks
+        ascending: the serial baseline's order (``native/cpu_baseline.cpp``).
+        A matmul or a reduction would leave the order to the backend, and
+        BP's dynamics turn a last-bit difference into a different decode
+        within a few tens of iterations; the fixed order makes min-sum
+        decodes bit-identical on every device, batch size and routing."""
+        c2v_flat = jnp.pad(c2v.reshape(B, m * wr), ((0, 0), (0, 1)))
+        gathered = c2v_flat[:, var_edge]  # [B, n, wc]; pad slots read 0.0
+        total = llr0
+        for j in range(graph.wc):
+            total = total + gathered[:, :, j]
+        return total
+
     M = graph.edge_var_onehot  # [m*wr, n] one-hot (None for large graphs)
 
     if M is not None:
-        # matmul formulation: every gather/segment-sum rides the MXU
+        # var->edge selection as a one-hot matmul (each output has exactly
+        # one nonzero term, so it is exact).  HIGHEST precision: at the
+        # default, a GPU contracts float32 in TF32 and would round every
+        # message to a 10-bit mantissa
         def var_to_edge(x):  # [B, n] -> [B, m, wr]
             return jnp.einsum(
-                "bn,en->be", x, M, preferred_element_type=jnp.float32
+                "bn,en->be", x, M, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             ).reshape(B, m, wr)
 
-        v2c0 = var_to_edge(llr0)
-
-        def syndrome_of(hard):
-            bits = var_to_edge(hard.astype(jnp.float32))
-            return jnp.sum(bits, axis=-1).astype(jnp.int32) & 1
-
-        def variable_update(c2v):
-            per_var = jnp.einsum(
-                "be,en->bn",
-                c2v.reshape(B, m * wr),
-                M,
-                preferred_element_type=jnp.float32,
-            )
-            total = llr0 + per_var
-            v2c_next = var_to_edge(total) - c2v
-            return total, v2c_next
-
     else:
-        llr0_pad = jnp.pad(llr0, ((0, 0), (0, 1)))
-        v2c0 = llr0_pad[:, chk_var]  # [B, m, wr]
+        def var_to_edge(x):  # [B, n] -> [B, m, wr]; pad slots read 0
+            return jnp.pad(x, ((0, 0), (0, 1)))[:, chk_var]
 
-        def syndrome_of(hard):
-            hard_pad = jnp.pad(hard, ((0, 0), (0, 1)))
-            bits = jnp.where(chk_mask, hard_pad[:, chk_var], 0)
-            return jnp.sum(bits, axis=-1) & 1
+    def syndrome_of(hard):
+        bits = var_to_edge(hard.astype(jnp.float32))
+        return jnp.sum(bits, axis=-1).astype(jnp.int32) & 1
 
-        def variable_update(c2v):
-            c2v_flat = c2v.reshape(B, m * wr)
-            c2v_flat = jnp.pad(c2v_flat, ((0, 0), (0, 1)))
-            gathered = c2v_flat[:, var_edge]  # [B, n, wc]
-            gathered = jnp.where(var_mask, gathered, 0.0)
-            total = llr0 + jnp.sum(gathered, axis=-1)
-            total_pad = jnp.pad(total, ((0, 0), (0, 1)))
-            v2c_next = total_pad[:, chk_var] - c2v
-            return total, v2c_next
-
-    def body(state):
-        it, v2c, hard_out, llr_out, iters, converged = state
+    def check_update(v2c, it):
         if method == "minimum_sum":
-            alpha = (
-                1.0 - jnp.exp2(-it.astype(jnp.float32))
-                if adaptive
-                else fixed_alpha
-            )
-            c2v = _check_update_min_sum(v2c, chk_mask, syn_sign, alpha)
-        else:
-            c2v = _check_update_product_sum(v2c, chk_mask, syn_sign)
-        total, v2c_next = variable_update(c2v)
+            alpha = adaptive_alpha(it) if adaptive else fixed_alpha
+            return _check_update_min_sum(v2c, chk_mask, syn_sign, alpha)
+        return _check_update_product_sum(v2c, chk_mask, syn_sign)
+
+    # The loop carries the CHECK messages of the coming iteration, so each
+    # product of the check update reaches memory, rounded, before it is
+    # summed.  Computed and summed in one body, a compiler may fuse the
+    # last multiply into the first add (an FMA, one rounding fewer) in
+    # some programs and not in others, and the decode would depend on
+    # fusion decisions.
+    def body(state):
+        it, c2v, hard_out, llr_out, iters, converged = state
+        total = per_variable_total(c2v)
         hard = (total <= 0).astype(jnp.int32)
         ok = jnp.all(syndrome_of(hard) == synd, axis=-1)
         live = ~converged  # not yet converged: keep updating outputs
@@ -229,7 +232,8 @@ def bp_decode(
         llr_out = jnp.where(live[:, None], total, llr_out)
         iters = jnp.where(live, it, iters)
         converged = converged | ok
-        return it + 1, v2c_next, hard_out, llr_out, iters, converged
+        c2v_next = check_update(var_to_edge(total) - c2v, it + 1)
+        return it + 1, c2v_next, hard_out, llr_out, iters, converged
 
     def cond(state):
         it, _, _, _, _, converged = state
@@ -237,7 +241,7 @@ def bp_decode(
 
     init = (
         jnp.int32(1),
-        v2c0,
+        check_update(var_to_edge(llr0), 1),
         jnp.zeros((B, n), jnp.int32),
         llr0,
         jnp.zeros((B,), jnp.int32),

@@ -7,12 +7,13 @@ option): check updates within an iteration see the *current* posteriors, so
 information propagates across the graph in one sweep instead of one hop —
 typically halving the iterations to convergence.
 
-TPU-native formulation: checks are greedily colored so that no two checks
-in a layer share a variable, then ROWS ARE REORDERED BY LAYER at graph
-build.  Each layer is a static slice of the check axis, and its
-variable<->edge maps are per-layer one-hot matmul operators — the whole
-sweep is a short static Python loop of MXU matmuls and VPU check updates,
-with zero dynamic gathers.  Within a layer the (check, variable) pairs are
+Formulation: checks are greedily colored so that no two checks in a layer
+share a variable, then ROWS ARE REORDERED BY LAYER at graph build.  Each
+layer is a static slice of the check axis, and its variable<->edge maps
+are per-layer one-hot matmul operators — the whole sweep is a short static
+Python loop of matmuls and elementwise check updates, with zero dynamic
+gathers.  The matmuls run at HIGHEST precision: at the default, a GPU
+contracts float32 in TF32 and would round every message.  Within a layer the (check, variable) pairs are
 disjoint, so posterior updates cannot collide.
 """
 
@@ -23,7 +24,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import gf2
-from .bp import BPResult, _check_update_min_sum, _check_update_product_sum, normalize_bp_method
+from .bp import (BPResult, _check_update_min_sum,
+                 _check_update_product_sum, adaptive_alpha,
+                 normalize_bp_method)
 from .tanner import TannerGraph
 
 __all__ = ["LayeredTannerGraph", "bp_decode_layered", "color_checks"]
@@ -127,7 +130,8 @@ def bp_decode_layered(
             c2v_l = jax.lax.slice_in_dim(c2v, lo, hi, axis=1)
             v2c_l = (
                 jnp.einsum(
-                    "bn,en->be", totals, M, preferred_element_type=jnp.float32
+                    "bn,en->be", totals, M, preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST,
                 ).reshape(B, mlc, wr)
                 - c2v_l
             )
@@ -135,7 +139,7 @@ def bp_decode_layered(
             sign_l = jax.lax.slice_in_dim(syn_sign, lo, hi, axis=1)
             if method == "minimum_sum":
                 alpha = (
-                    1.0 - jnp.exp2(-it.astype(jnp.float32))
+                    adaptive_alpha(it)
                     if adaptive
                     else fixed_alpha
                 )
@@ -149,6 +153,7 @@ def bp_decode_layered(
                 delta.reshape(B, mlc * wr),
                 M,
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
             c2v = jax.lax.dynamic_update_slice_in_dim(c2v, c2v_new, lo, axis=1)
         return totals, c2v
@@ -159,6 +164,7 @@ def bp_decode_layered(
         bits = jnp.einsum(
             "bn,en->be", hard.astype(jnp.float32), full_op,
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,
         ).reshape(B, m, wr)
         synd_hat = jnp.sum(bits, axis=-1).astype(jnp.int32) & 1
         return jnp.all(synd_hat == synd, axis=-1)

@@ -1,9 +1,8 @@
 """Structure-aware BP for protograph-lifted (block-circulant) codes.
 
-The generic decode paths treat the parity-check matrix as unstructured:
-the XLA path gathers through runtime index arrays (which lower to scalar
-loops on TPU — catastrophic at n ~ 10^4), and the fused Pallas kernel
-routes through dense one-hot operators (~0.5 GB at that size).  But a
+The generic decode path treats the parity-check matrix as unstructured:
+it gathers through runtime index arrays or routes through dense one-hot
+operators (~0.5 GB at n ~ 10^4).  But a
 lifted-product matrix (``codes/lifted_product.py``, the Panteleev-Kalachev
 construction behind every n ~ 10^4 qLDPC family) is fully described by a
 small protograph of cyclic-shift exponents over ``F2[x]/(x^L - 1)``:
@@ -15,10 +14,9 @@ blocks — ``jnp.roll`` with compile-time shifts, which XLA lowers to two
 slices and a concatenate.  No gathers, no index arrays, no one-hot
 operators.
 
-TPU layout: every tensor carries the batch on the MINOR (lane) axis and
-the cyclic index L on the second-minor (sublane) axis — ``[.., L, B]`` —
-so each roll is a sublane-block copy.  (The first cut rolled the minor
-axis instead; unaligned lane shifts made it ~30x slower on v5e.)  The
+Layout: every tensor carries the batch on the minor axis and the cyclic
+index L on the second-minor axis — ``[.., L, B]`` — so each roll moves
+whole contiguous batch rows instead of shifting the minor axis.  The
 check-node update therefore reduces over the MAJOR ``wr`` axis with the
 same min/sign arithmetic as ``decoder/bp.py:_check_update_min_sum``
 (first-minimum tie rule on the slot index), keeping min-sum outputs
@@ -35,7 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .bp import BPResult, normalize_bp_method
+from .bp import BPResult, adaptive_alpha, normalize_bp_method
 
 __all__ = ["LiftedGraph", "bp_decode_lifted"]
 
@@ -174,7 +172,7 @@ def bp_decode_lifted(
         it, v2c, hard_out, llr_out, iters, converged = state
         if method == "minimum_sum":
             alpha = (
-                1.0 - jnp.exp2(-it.astype(jnp.float32))
+                adaptive_alpha(it)
                 if adaptive
                 else fixed_alpha
             )

@@ -1,6 +1,6 @@
 """Batched ordered-statistics decoding (OSD) post-processing.
 
-TPU-native re-design of the reference's native OSD stage (interface at
+Batched XLA re-design of the reference's native OSD stage (interface at
 reference ``README.md:185-187``: ``osd_method`` in {"osd_e", "osd_cs",
 "osd0"} with ``osd_order``; outputs ``osd0_decoding``/``osdw_decoding`` at
 reference ``css_decode_sim.py:257-295``).
@@ -20,7 +20,7 @@ Pipeline per syndrome batch (everything fixed-shape, jit-compiled):
 4. OSD-w search over the "bad" set T (non-pivot columns in reliability
    order):
    - ``osd_e``  : all ``2^order`` patterns on the first ``order`` T-bits,
-     evaluated as candidate-blocked mod-2 matmuls (MXU work).
+     evaluated as candidate-blocked mod-2 matmuls.
    - ``osd_cs`` : all weight-1 patterns on T plus all weight-2 patterns on
      the first ``order`` T-bits (the combination-sweep of arXiv:2005.07016),
      evaluated with bit-packed XOR + popcount.
@@ -55,12 +55,8 @@ OSD_METHODS = {
 
 
 class OsdConsts(NamedTuple):
-    """Host-built candidate-search tables, passed through jit as arguments.
-
-    NEVER close over these inside a TPU-jitted function: embedded constant
-    arrays feeding broadcast+reduce fusions hang the TPU AOT compiler (see
-    TannerGraph docstring).
-    """
+    """Host-built candidate-search tables, passed through jit as arguments
+    (as the graph is; see the TannerGraph docstring)."""
 
     patterns: object = None  # osd_e: [C, lam] uint8 bit patterns
     pattern_weights: object = None  # osd_e: [C] int32 popcounts
@@ -138,10 +134,10 @@ def _eliminate(graph: TannerGraph, perm, synd, skip=None):
     """Batched Gauss-Jordan elimination of H in per-sample column order.
 
     Swap-free formulation: pivot rows stay in place and are tracked in
-    ``pivot_rows`` — on TPU this halves the per-step passes over the packed
-    matrix, and every per-step "gather" is expressed as a shift + one-hot
-    masked reduction (dynamic-index gathers along the minor axes lower to
-    catastrophically slow loops on TPU).
+    ``pivot_rows``, which halves the per-step passes over the packed
+    matrix.  Every per-step "gather" is a shift + one-hot masked
+    reduction; whether a dynamic gather is cheaper on the GPU is not yet
+    measured.
 
     Args:
       perm:  [B, n] column visiting order (reliability sort).
@@ -232,11 +228,11 @@ def _extract_t_columns(graph, h_rows, perm, pivot_mask):
 
     ``h_rows [B, r, W]`` are the pivot rows of the reduced matrix.  The
     per-column word selection runs as one-hot matmuls over 8-bit chunks of
-    each word (MXU work) instead of a minor-axis gather, which lowers to a
-    slow scalar loop on TPU.  Chunks are 8 bits so the selection is exact
-    even when the backend computes f32 matmuls at bf16 input precision
-    (values <= 255 are exactly representable in bf16; wider chunks silently
-    lose low bits — this was a real decode-corrupting bug, caught by
+    each word instead of a minor-axis gather.  Chunks are 8 bits so the
+    selection is exact at the default matmul precision, which on the GPU
+    is TF32: its 10-bit mantissa holds every value <= 255 exactly, and each
+    output sums exactly one nonzero product.  Wider chunks silently lose
+    low bits (a real decode-corrupting bug once, caught by
     ``tests/test_cpu_baseline.py``).
     """
     n, r = graph.n, graph.rank
@@ -257,6 +253,7 @@ def _extract_t_columns(graph, h_rows, perm, pivot_mask):
         chunk = ((h_rows >> jnp.uint32(shift)) & jnp.uint32(0xFF)).astype(
             jnp.float32
         )
+        # default precision on purpose: exact in TF32 (see docstring)
         sel = jnp.einsum(
             "brw,bkw->brk", chunk, onehot_w,
             preferred_element_type=jnp.float32,
@@ -300,7 +297,8 @@ def _search_osd_e(order, s_rows, t_bits, patterns, pattern_weights):
 
     def block_weights(args):
         Pb, pwb = args
-        # [C_b, lam] x [B, r, lam] -> [B, C_b, r] parity
+        # [C_b, lam] x [B, r, lam] -> [B, C_b, r] parity; 0/1 operands and
+        # sums <= lam are exact at default (TF32) precision
         acc = jnp.einsum(
             "cl,brl->bcr", Pb, t_active, preferred_element_type=jnp.float32
         )
@@ -312,6 +310,7 @@ def _search_osd_e(order, s_rows, t_bits, patterns, pattern_weights):
     best = jnp.argmin(weights, axis=1)  # first minimum wins ties
 
     p_best = patterns.astype(jnp.int32)[best]  # [B, lam]
+    # 0/1 parity matmul: exact at default (TF32) precision
     e_piv = (
         jnp.einsum(
             "bl,brl->br",
@@ -365,6 +364,7 @@ def _search_osd_cs(order, s_rows, t_bits, pairs):
         pattern = pattern.at[B_idx, i2].add(in_w2.astype(jnp.int32))
         pattern = pattern.at[B_idx, j2].add(in_w2.astype(jnp.int32))
 
+    # 0/1 parity matmul (pattern weight <= 2): exact at default precision
     e_piv = (
         jnp.einsum(
             "bk,brk->br",
@@ -385,23 +385,19 @@ def osd_decode(
     osd_method: str = "osd0",
     osd_order: int = 0,
     consts: OsdConsts | None = None,
-    backend: str = "xla",
     skip=None,
-    interpret: bool = False,
 ) -> OsdResult:
     """Run OSD on a batch given BP soft outputs ``llr`` ([B, n]).
 
     ``skip`` ([B] bool, optional) marks samples that do not need OSD (BP
     already converged): their elimination is bypassed and their outputs
     are undefined — the caller selects the BP decoding for them anyway.
-    Cluster skips (sort the batch by the skip flag) so whole Pallas blocks
-    exit immediately.
+    The elimination loop exits once every live sample has its pivots.
 
     ``consts`` are the host-built candidate tables from
-    :func:`build_osd_consts`.  When jitting on TPU, build them outside and
-    pass them *through* the jit boundary as arguments (embedded constants
-    hang the TPU AOT compiler); if omitted they are built at trace time,
-    which is fine on CPU.
+    :func:`build_osd_consts`.  When jitting, build them outside and pass
+    them *through* the jit boundary as arguments; if omitted they are
+    built at trace time.
     """
     method = normalize_osd_method(osd_method)
     if method == "osd_e" and osd_order > _MAX_OSD_E_ORDER:
@@ -417,72 +413,9 @@ def osd_decode(
     llr = jnp.asarray(llr, jnp.float32)
     perm = jnp.argsort(llr, axis=1, stable=True).astype(jnp.int32)  # [B, n]
 
-    if backend == "pallas":
-        # the fused batch-on-lanes kernels keep two [W, m_pad, block]
-        # matrix copies VMEM-resident; beyond their budget (lifted-product
-        # scale) route to the per-sample streamed large-code kernel
-        # instead of failing at Mosaic compile time (round-3 ADVICE 2)
-        from ..ops.pallas_osd import fused_osd_fits
-
-        fused_ok = fused_osd_fits(graph)
-    if backend == "pallas" and method == "osd_cs" and osd_order > 0 and n > r:
-        if fused_ok:
-            # fully fused path: elimination + combination sweep in one
-            # VMEM-resident kernel; the reduced matrix never touches HBM
-            from ..ops.pallas_osd import osd_cs_pallas
-
-            e0, e_w = osd_cs_pallas(
-                graph, perm, synd, osd_order=osd_order, skip=skip,
-                interpret=interpret,
-            )
-        else:
-            from ..ops.pallas_osd_large import osd_cs_large_pallas
-
-            e0, e_w = osd_cs_large_pallas(
-                graph, perm, synd, osd_order=osd_order, skip=skip,
-                interpret=interpret,
-            )
-        return OsdResult(osd0=e0.astype(jnp.uint8), osdw=e_w.astype(jnp.uint8))
-
-    if (backend == "pallas" and method == "osd_e" and 0 < osd_order
-            and min(osd_order, n - r) <= 16 and n > r and fused_ok):
-        # fused exhaustive search: Gray-code enumeration of the 2^order
-        # patterns, one packed-column XOR per candidate, never leaving VMEM
-        from ..ops.pallas_osd import osd_e_pallas
-
-        e0, e_w = osd_e_pallas(
-            graph, perm, synd, osd_order=osd_order, skip=skip,
-            interpret=interpret,
-        )
-        return OsdResult(osd0=e0.astype(jnp.uint8), osdw=e_w.astype(jnp.uint8))
-
-    if backend == "pallas" and method == "osd0" and not fused_ok:
-        # large-code osd0: the same streamed kernel with an empty sweep
-        from ..ops.pallas_osd_large import osd_cs_large_pallas
-
-        e0, e_w = osd_cs_large_pallas(
-            graph, perm, synd, osd_order=0, skip=skip, interpret=interpret,
-        )
-        return OsdResult(osd0=e0.astype(jnp.uint8), osdw=e_w.astype(jnp.uint8))
-
-    if backend == "pallas":
-        from ..ops.pallas_gf2 import eliminate_fits, eliminate_pallas
-
-        if not eliminate_fits(graph):
-            # batch-on-lanes blocks cannot shrink below 128 samples; at
-            # that size large codes exceed VMEM -> XLA elimination
-            h_work, s_work, pivot_ids, pivot_rows, pivot_mask = _eliminate(
-                graph, perm, synd, skip=skip
-            )
-        else:
-            h_work, s_work, pivot_ids, pivot_rows, pivot_mask = (
-                eliminate_pallas(graph, perm, synd, skip=skip,
-                                 interpret=interpret)
-            )
-    else:
-        h_work, s_work, pivot_ids, pivot_rows, pivot_mask = _eliminate(
-            graph, perm, synd, skip=skip
-        )
+    h_work, s_work, pivot_ids, pivot_rows, pivot_mask = _eliminate(
+        graph, perm, synd, skip=skip
+    )
     # pivot i lives in row pivot_rows[:, i]; gather once (O(B*r) scalars)
     s_rows = jnp.take_along_axis(s_work, pivot_rows, axis=1)  # [B, r]
 

@@ -1,101 +1,23 @@
-"""Batched BP+OSD decode pipeline with staged long-iteration BP.
+"""Batched BP+OSD decode pipeline: one jit-compatible function.
 
-The reference example workload runs BP to ``max_iter = 0 -> N`` (400 for
-the [[400,16,6]] flagship; reference ``examples/qldpc_decode_example.py:19``,
-``README.md:183``).  Running every sample to N iterations wastes ~10x work:
-most samples converge within a few tens of iterations, but a Pallas block
-only early-exits when ALL its samples converge.  The staged pipeline
-restores the early-exit economics while preserving exact per-sample
-reference semantics:
-
-1. Stage 1: BP capped at ``stage1_iters`` on the whole batch.
-2. Stage 2 (only when ``max_iter > stage1_iters``): re-decode ONLY the
-   stage-1 failures, clustered into whole blocks, from scratch with the
-   full ``max_iter``.  BP is deterministic, so a from-scratch re-decode
-   follows the identical message trajectory — a sample that would converge
-   at iteration 97 of a straight ``max_iter`` run converges at iteration
-   97 here, with identical ``hard``/``llr``/``iterations`` outputs.  The
-   only cost is re-running the first ``stage1_iters`` iterations for the
-   failures (<= 10% overhead at the flagship's failure rate).
-3. OSD on the remaining failures (skip-clustered so converged blocks are
-   bypassed), merged back in original batch order.
-
-Semantics therefore match a single ``bp_decode(max_iter=max_iter)`` +
-``osd_decode`` exactly, while costing roughly
-``stage1 + fail_rate * max_iter`` instead of ``max_iter`` per sample.
+BP runs straight to ``max_iter`` with per-sample freeze at first
+convergence (``bp_decode``); OSD then runs on the BP soft output, and
+converged samples keep their BP decoding.  This is the reference's
+per-syndrome semantics (``max_iter = 0 -> N``; reference
+``examples/qldpc_decode_example.py:19``, ``README.md:183``) on a batch.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
-from .bp import BPResult, bp_decode
+from .bp import bp_decode
 from .osd import OsdConsts, osd_decode
 from .tanner import TannerGraph
 
-__all__ = ["BpOsdBatch", "auto_stage_schedule", "decode_pipeline"]
-
-
-def _prefix_cond(B: int, nfail, fn):
-    """Dispatch ``fn(prefix)`` at the smallest static prefix covering the
-    (dynamic) failure count.
-
-    The batch is failure-clustered before every OSD / resumed-BP stage, so
-    only the first ``nfail`` rows carry work — but the stage's XLA glue
-    (argsort of LLRs, the permuted-matrix pre-pass, gathers) is
-    batch-dense and cannot block-skip like the Pallas kernels do.  A
-    ``lax.cond`` cascade over static prefix tiers (B/4, 3B/8, B/2, 5B/8,
-    B) compiles one stage per tier and executes only the smallest that
-    covers every failure; correctness never depends on the failure rate
-    (the full-batch branch is the fallback).  Eighth-granularity matters:
-    the flagship's stage-2 (~50%) and OSD (~25%) failure rates sit ON
-    quarter boundaries, where quarter-only tiers fell back to the next
-    2x-cost tier on roughly half the dispatches.
-
-    ``fn(prefix)`` must return outputs padded/laid out identically for
-    every prefix (same pytree of [B, ...] arrays).
-    """
-    if B < 1024 or B % 8:
-        # small dispatches: the glue is cheap and extra compiles are not
-        return fn(B)
-    tiers = [B // 4, 3 * B // 8, B // 2, 5 * B // 8]
-
-    def dispatch(i):
-        if i == len(tiers):
-            return fn(B)
-        return jax.lax.cond(
-            nfail <= tiers[i], lambda: fn(tiers[i]),
-            lambda: dispatch(i + 1),
-        )
-
-    return dispatch(0)
-
-
-def _pad_rows(x, B: int):
-    p = B - x.shape[0]
-    if p == 0:
-        return x
-    return jnp.pad(x, ((0, p),) + ((0, 0),) * (x.ndim - 1))
-
-
-def _partition_order(conv):
-    """Failure-clustered order + inverse: non-converged rows first, each
-    group in original index order — bit-identical to
-    ``argsort(conv.astype(int32), stable=True)`` for a boolean key, at
-    O(B) cumsum/scatter cost instead of an O(B log^2 B) sort network
-    (three boundaries per dispatch pay this)."""
-    B = conv.shape[0]
-    c = conv.astype(jnp.int32)
-    nfail = B - jnp.sum(c)
-    # destination position of each row under the stable partition
-    pos = jnp.where(conv, nfail + jnp.cumsum(c) - 1,
-                    jnp.cumsum(1 - c) - 1)
-    iota = jnp.arange(B, dtype=jnp.int32)
-    order = jnp.zeros((B,), jnp.int32).at[pos].set(iota)
-    return order, pos  # pos IS the inverse permutation
+__all__ = ["BpOsdBatch", "decode_pipeline"]
 
 
 class BpOsdBatch(NamedTuple):
@@ -105,20 +27,6 @@ class BpOsdBatch(NamedTuple):
     converged: jnp.ndarray  # [B] bool BP convergence
     iterations: jnp.ndarray  # [B] int32
     llr: jnp.ndarray = None  # [B, n] float32 BP soft output (posterior LLRs)
-
-
-def auto_stage_schedule(max_iter: int) -> tuple[int, ...]:
-    """Derive a multi-stage BP resume schedule from the iteration cap.
-
-    The stage caps follow the on-chip-tuned flagship point — ``(24, 96)``
-    for ``max_iter = 400`` (``bench.py``, round-5 sweep) — scaled as
-    ``max_iter/16`` and ``max_iter/4`` and floored to multiples of 8
-    (Pallas sublane tiling).  ``decode_pipeline`` drops caps >=
-    ``max_iter``, so short runs degrade gracefully to fewer stages.
-    """
-    mi = int(max_iter)
-    caps = sorted({max(8, mi // 16 // 8 * 8), max(16, mi // 4 // 8 * 8)})
-    return tuple(c for c in caps if c < mi) or (mi,)
 
 
 def decode_pipeline(
@@ -132,18 +40,10 @@ def decode_pipeline(
     osd_method: str = "osd_cs",
     osd_order: int = 0,
     consts: OsdConsts | None = None,
-    backend: str = "xla",
-    bp_operators=None,
-    stage1_iters: int = 32,
-    bp_block: int = 128,
-    interpret: bool = False,
-    bp_msg_dtype: str = "float32",
 ) -> BpOsdBatch:
     """Full batched BP+OSD decode; jit-compatible (all shapes static).
 
-    ``backend="pallas"`` uses the fused VMEM-resident kernels and requires
-    ``bp_operators`` (from ``ops.pallas_bp.build_bp_operators``); pass
-    graph/operators/consts through any enclosing jit as ARGUMENTS.
+    Pass the graph and ``consts`` through any enclosing jit as arguments.
     """
     if max_iter == 0:
         max_iter = graph.n
@@ -154,101 +54,18 @@ def decode_pipeline(
     B = synd.shape[0]
     llr0 = jnp.broadcast_to(jnp.asarray(llr0, jnp.float32), (B, n))
 
-    if backend == "pallas":
-        from ..ops.pallas_bp import bp_decode_pallas
-
-        kw = dict(bp_method=bp_method, ms_scaling_factor=ms_scaling_factor,
-                  block=bp_block, interpret=interpret,
-                  msg_dtype=bp_msg_dtype)
-        # stage schedule: stage1_iters is an int (two-stage) or a tuple of
-        # increasing caps (multi-stage); every boundary re-clusters the
-        # remaining failures and RESUMES their v2c message state, so each
-        # stage concentrates never-converging samples into fewer Pallas
-        # blocks at zero re-decode cost.  BP is deterministic and the
-        # adaptive scale depends only on the global iteration number, so
-        # the chained trajectory is identical to a straight max_iter run.
-        if isinstance(stage1_iters, (tuple, list)):
-            caps = [int(s) for s in stage1_iters if int(s) < int(max_iter)]
-        else:
-            caps = [min(int(stage1_iters), int(max_iter))]
-        caps = sorted(set(caps)) or [int(max_iter)]
-
-        out1 = bp_decode_pallas(
-            graph, bp_operators, synd, llr0, max_iter=caps[0],
-            emit_state=caps[0] < max_iter, **kw
-        )
-        hard, llr, conv, iters = out1[:4]
-        s_prev = caps[0]
-        v2c = out1[4] if caps[0] < max_iter else None
-        for s_next in caps[1:] + [int(max_iter)]:
-            if s_prev >= max_iter:
-                break
-            order, inv = _partition_order(conv)
-            emit = s_next < max_iter
-            nfail = B - jnp.sum(conv)
-
-            def stage(prefix, s_next=s_next, emit=emit, order=order,
-                      conv=conv, v2c=v2c, s_prev=s_prev):
-                sel = order[:prefix]
-                out2 = bp_decode_pallas(
-                    graph, bp_operators, synd[sel], llr0[sel],
-                    max_iter=int(s_next), skip=conv[sel],
-                    v2c_init=v2c[sel], it0=s_prev, emit_state=emit, **kw
-                )
-                # pad to full batch: rows beyond the prefix are converged
-                # samples whose (discarded) outputs are never selected
-                return tuple(_pad_rows(o, B) for o in out2)
-
-            out2 = _prefix_cond(B, nfail, stage)
-            h2, l2, c2, i2 = out2[:4]
-            # every resumed failure ran to exactly s_next total
-            # iterations: take its state wholesale (converged or not)
-            upd = ~conv
-            hard = jnp.where(upd[:, None], h2[inv], hard)
-            llr = jnp.where(upd[:, None], l2[inv], llr)
-            iters = jnp.where(upd, i2[inv], iters)
-            conv = conv | c2[inv].astype(bool)
-            v2c = out2[4][inv] if emit else None
-            s_prev = s_next
-        bp = BPResult(hard=hard, llr=llr, converged=conv, iterations=iters)
-
-        order, inv = _partition_order(bp.converged)
-        nfail = B - jnp.sum(bp.converged)
-
-        def osd_stage(prefix):
-            sel = order[:prefix]
-            o = osd_decode(
-                graph, synd[sel], bp.llr[sel],
-                osd_method=osd_method, osd_order=osd_order, consts=consts,
-                backend="pallas", skip=bp.converged[sel],
-                interpret=interpret,
-            )
-            return _pad_rows(o.osdw, B), _pad_rows(o.osd0, B)
-
-        osdw, osd0 = _prefix_cond(B, nfail, osd_stage)
-        osdw = osdw[inv]
-        osd0 = osd0[inv]
-    else:
-        # NOTE (documented asymmetry): the XLA path runs straight
-        # ``max_iter`` BP with per-sample freeze but no stage-1/resume
-        # split — XLA's while_loop already early-exits when the WHOLE
-        # batch converges, and without Pallas block granularity there is
-        # no per-block skip to exploit, so staging would only add a
-        # second compile of the same program.  TPU (the target) always
-        # takes the staged Pallas branch above.
-        bp = bp_decode(
-            graph, synd, llr0, bp_method=bp_method, max_iter=int(max_iter),
-            ms_scaling_factor=ms_scaling_factor,
-        )
-        osd = osd_decode(
-            graph, synd, bp.llr,
-            osd_method=osd_method, osd_order=osd_order, consts=consts,
-        )
-        osdw, osd0 = osd.osdw, osd.osd0
+    bp = bp_decode(
+        graph, synd, llr0, bp_method=bp_method, max_iter=int(max_iter),
+        ms_scaling_factor=ms_scaling_factor,
+    )
+    osd = osd_decode(
+        graph, synd, bp.llr,
+        osd_method=osd_method, osd_order=osd_order, consts=consts,
+    )
 
     keep = bp.converged[:, None]
-    osdw = jnp.where(keep, bp.hard, osdw).astype(jnp.uint8)
-    osd0 = jnp.where(keep, bp.hard, osd0).astype(jnp.uint8)
+    osdw = jnp.where(keep, bp.hard, osd.osdw).astype(jnp.uint8)
+    osd0 = jnp.where(keep, bp.hard, osd.osd0).astype(jnp.uint8)
     return BpOsdBatch(
         osdw=osdw, osd0=osd0, bp_hard=bp.hard,
         converged=bp.converged, iterations=bp.iterations, llr=bp.llr,

@@ -1,4 +1,4 @@
-"""Tanner-graph compiler: host-side layout of a GF(2) PCM for TPU decoding.
+"""Tanner-graph compiler: host-side layout of a GF(2) PCM for batched decoding.
 
 The reference's native decoder walks CSR adjacency lists one syndrome at a
 time (interface at reference ``README.md:190-197``).  Here the graph is
@@ -14,7 +14,7 @@ batch is decoded by dense, jit-compiled gathers/reductions:
 
 Check-message updates are reductions along the last axis of ``[B, m, wr]``;
 variable updates are gathers of ``[B, m*wr]`` through ``var_edge`` — no
-data-dependent shapes anywhere, so XLA tiles everything onto the VPU.
+data-dependent shapes anywhere, so XLA compiles one fixed-shape program.
 """
 
 from __future__ import annotations
@@ -33,10 +33,9 @@ class TannerGraph:
 
     Registered as a JAX pytree so a graph can be passed *as an argument*
     through ``jax.jit`` — its index arrays then become program parameters
-    rather than HLO-embedded literal constants.  This is load-bearing on
-    TPU: the AOT compiler pathologically hangs on large embedded constants
-    feeding broadcast+reduce fusions (observed on v5e; constants-as-args
-    compile in under a second).
+    rather than HLO-embedded literal constants, which keeps large graphs
+    out of the compiled program and lets one compilation serve any graph
+    of the same shape.
     """
 
     def __init__(self, H):
@@ -85,11 +84,11 @@ class TannerGraph:
         self.rank = gf2.rank(Hd)
 
         # one-hot edge<->variable operator [m*wr, n]: turns BP's gathers and
-        # segment-sums into MXU matmuls (gathers with runtime index arrays
-        # lower to slow scalar loops on TPU).  Pad slots are all-zero rows,
-        # so garbage in pad message lanes never propagates.  Only built for
-        # graphs small enough that the dense operator is cheap; larger
-        # graphs fall back to the gather path.
+        # segment-sums into matmuls.  Pad slots are all-zero rows, so garbage
+        # in pad message slots never propagates.  Only built for graphs small
+        # enough that the dense operator is cheap; larger graphs take the
+        # gather path.  Which routing is faster on the GPU is not yet
+        # measured.
         E_flat = m * self.wr
         if E_flat * n <= 8_000_000:
             M = np.zeros((E_flat, n), dtype=np.float32)

@@ -1,6 +1,6 @@
 """Bit-packed GF(2) linear algebra (host side).
 
-TPU-native framework replacement for the native ``ldpc.mod2`` module that the
+Framework replacement for the native ``ldpc.mod2`` module that the
 reference consumes (call sites: reference ``src/bposd/css.py:2``,
 ``src/bposd/stab.py:2``, ``src/bposd/hgp.py:2``).  All construction-time
 algebra runs on the host with rows packed 64 columns per ``uint64`` word, so a

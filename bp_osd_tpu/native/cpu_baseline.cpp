@@ -4,7 +4,7 @@
 // external `ldpc` C++/Cython package (reference setup.py:30), which cannot
 // be pip-installed in this environment (see BASELINE.md).  This translation
 // unit is an honest, competently-optimized serial CPU implementation of the
-// SAME decode semantics this framework implements on TPU:
+// SAME decode semantics this framework implements on the accelerator:
 //
 //   * min-sum BP, parallel (flooding) schedule, with a fixed scaling
 //     factor or the adaptive alpha_t = 1 - 2^-t when
@@ -41,7 +41,7 @@
 //   osd_method: osd_cs|osd_e|osd0 (default osd_cs); input_type:
 //   syndrome|received_vector (default syndrome).  Prints one decoding per
 //   line as n 0/1 chars (used by tests/test_cpu_baseline.py for
-//   bit-for-bit comparison against the TPU decoder).
+//   bit-for-bit comparison against the batched JAX decoder).
 
 #include <cstdint>
 #include <cstdio>
@@ -151,7 +151,7 @@ struct BpOsd {
                 }
             } else {
                 // product-sum (tanh rule) with forward/backward exclusive
-                // products — the same association order as the TPU path
+                // products — the same association order as the JAX path
                 // (decoder/bp.py:_check_update_product_sum)
                 for (int i = 0; i < g.m; ++i) {
                     int lo = g.chk_ptr[i], hi = g.chk_ptr[i + 1];

@@ -2,7 +2,7 @@
 //
 // The reference delegated ALL GF(2) algebra to the native (C++/Cython)
 // `ldpc` package (reference setup.py:30, css.py:2).  In this framework the
-// *decode-time* elimination runs on TPU (Pallas/XLA); this translation unit
+// *decode-time* elimination runs on the accelerator (XLA); this translation unit
 // is the native engine for the *construction-time* host path (code
 // construction, logical-operator computation, rank/nullspace of n ~ 1e4+
 // lifted-product codes), where a Python column loop is the bottleneck.

@@ -1,12 +1,12 @@
 """Multi-host orchestration.
 
 The reference scaled out by launching independent seeded processes on an
-HPC cluster (SURVEY.md §2.3).  The TPU-native replacement is a single
-SPMD program over all hosts of a pod slice: ``initialize()`` wires up
-``jax.distributed``, after which ``jax.devices()`` spans every chip, a
-``Mesh`` built by ``bp_osd_tpu.parallel.make_mesh`` covers the slice, and
-the batched decode / Monte-Carlo harness shard the syndrome batch over
-ICI + DCN with no further code changes.
+HPC cluster (SURVEY.md §2.3).  The replacement is a single SPMD program
+over all hosts: ``initialize()`` wires up ``jax.distributed``, after which
+``jax.devices()`` spans every card, a ``Mesh`` built by
+``bp_osd_tpu.parallel.make_mesh`` covers them, and the batched decode /
+Monte-Carlo harness shard the syndrome batch over NVLink and the network
+between hosts with no further code changes.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> bool:
     """Initialize JAX's distributed runtime; True once multi-host is live.
 
-    On TPU pods launched through standard tooling the arguments are
+    Under a cluster launcher that JAX recognizes the arguments are
     auto-detected; pass them explicitly for manual setups (the 2-process
     CPU test ``tests/test_distributed.py`` does).  Explicit arguments make
     failures fatal — swallowing them here masked real wiring errors; only

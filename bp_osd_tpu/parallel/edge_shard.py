@@ -1,12 +1,12 @@
 """Edge-sharded BP: partition the Tanner graph's checks across devices.
 
-For codes too large for one chip's HBM at high batch (n ~ 10^4
+For codes too large for one card's memory at high batch (n ~ 10^4
 lifted-product codes, message state ``[B, E]``), the check axis — and with
 it the check-major message state — is sharded over a ``model`` mesh axis.
 Each device runs the check update for its own checks with zero
 communication; the variable update needs each variable's total over *all*
 incident checks, which is one ``psum`` of the partial per-variable sums
-``[B, n]`` per iteration (rides ICI).  Convergence is a one-bit ``psum``
+``[B, n]`` per iteration (over NVLink between cards).  Convergence is a one-bit ``psum``
 per sample.  This is the decoder analogue of tensor parallelism
 (SURVEY.md §2.3: a capability the reference lacks entirely — its answer to
 big codes was "run fewer syndromes").
@@ -92,7 +92,9 @@ def edge_sharded_bp_fn(
     (hard [B, n], llr [B, n], converged [B])`` where ``m_pad_total =
     n_shards * m_chunk`` (pad syndromes of the padded checks with zeros).
     """
-    from ..decoder.bp import _check_update_min_sum, _check_update_product_sum, normalize_bp_method
+    from ..decoder.bp import (_check_update_min_sum,
+                              _check_update_product_sum, adaptive_alpha,
+                              normalize_bp_method)
 
     method = normalize_bp_method(bp_method)
     if max_iter == 0:
@@ -130,7 +132,7 @@ def edge_sharded_bp_fn(
             it, v2c, hard_out, llr_out, iters, conv = state
             if method == "minimum_sum":
                 alpha = (
-                    1.0 - jnp.exp2(-it.astype(jnp.float32))
+                    adaptive_alpha(it)
                     if adaptive
                     else fixed_alpha
                 )

@@ -14,45 +14,31 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..decoder.osd import build_osd_consts, osd_decode
 from ..decoder.tanner import TannerGraph
 from .edge_shard import ShardedTannerGraph, edge_sharded_bp_fn
-from .shard_pallas import shard_map
 
 __all__ = ["edge_sharded_bposd_fn", "lifted_sharded_bposd_fn"]
 
 
 def _build_osd_stage(graph, consts, mesh, *, osd_method, osd_order,
-                     data_axis, model_axis, backend):
+                     data_axis, model_axis):
     """Gather-to-DP OSD: each device of the flattened (data x model) mesh
-    eliminates its own batch shard with the single-device routing of
-    ``osd_decode`` — including the size-aware Pallas dispatch (fused
-    kernel, or the per-sample streamed large-code kernel beyond its VMEM
-    budget).  ``shard_map`` is required here: GSPMD cannot partition the
-    opaque Pallas custom call, so the round-4 ``with_sharding_constraint``
-    formulation silently forced the batch-dense XLA elimination — the
-    exact ~1.4 TB HBM-streaming path the streamed kernel was built to kill
-    (round-4 VERDICT weak item 2).
-
-    ``backend="auto"`` resolves to the Pallas kernels on TPU and the XLA
-    elimination on CPU; ``backend="pallas"`` off-TPU runs the kernels in
-    interpret mode (the CPU-mesh test configuration).
-    """
-    on_tpu = jax.devices()[0].platform != "cpu"
-    if backend == "auto":
-        backend = "pallas" if on_tpu else "xla"
-    interpret = backend == "pallas" and not on_tpu
+    eliminates its own batch shard with the single-device ``osd_decode``
+    under ``shard_map``, so each device's elimination loop exits on its
+    own shard's failures rather than the whole batch's."""
     dp = P((data_axis, model_axis))
 
     def local(synd, llr, conv):
         out = osd_decode(
             graph, synd, llr, osd_method=osd_method, osd_order=osd_order,
-            consts=consts, backend=backend, interpret=interpret,
+            consts=consts,
             # BP-converged samples keep their BP decoding: start them
             # "done" so the elimination exits as soon as the unconverged
-            # tail finds its pivots (round-3 VERDICT weak item 1)
+            # tail finds its pivots
             skip=conv,
         )
         return out.osdw
@@ -73,7 +59,6 @@ def edge_sharded_bposd_fn(
     osd_order: int = 0,
     data_axis: str = "data",
     model_axis: str = "model",
-    osd_backend: str = "auto",
 ):
     """Build ``decode(syndromes_pad [B, D*mc], llr0 [B, n]) ->
     (osdw [B, n] uint8, converged [B] bool)``.
@@ -95,7 +80,7 @@ def edge_sharded_bposd_fn(
     # gather-to-DP: batch sharded over EVERY device (both mesh axes)
     osd_stage = _build_osd_stage(
         graph, consts, mesh, osd_method=osd_method, osd_order=osd_order,
-        data_axis=data_axis, model_axis=model_axis, backend=osd_backend,
+        data_axis=data_axis, model_axis=model_axis,
     )
 
     def decode(syndromes_pad, llr0):
@@ -120,7 +105,6 @@ def lifted_sharded_bposd_fn(
     osd_order: int = 0,
     data_axis: str = "data",
     model_axis: str = "model",
-    osd_backend: str = "auto",
 ):
     """End-to-end decode for lifted-product codes: scatter-free
     model-sharded BP (``lifted_shard.py``) + gather-to-DP OSD.
@@ -148,7 +132,7 @@ def lifted_sharded_bposd_fn(
 
     osd_stage = _build_osd_stage(
         graph, consts, mesh, osd_method=osd_method, osd_order=osd_order,
-        data_axis=data_axis, model_axis=model_axis, backend=osd_backend,
+        data_axis=data_axis, model_axis=model_axis,
     )
 
     m = lgraph.m

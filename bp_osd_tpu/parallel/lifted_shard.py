@@ -1,11 +1,9 @@
 """Scatter-free edge-sharded BP for protograph-lifted codes.
 
 ``edge_shard.py`` partitions an UNSTRUCTURED Tanner graph's checks across
-the ``model`` mesh axis, but routes messages with ``.at[].add`` scatters —
-the exact pattern the repo's own design notes call out as lowering to
-scalar loops on TPU (round-3 VERDICT weak item 5).  For the codes that
-actually need model parallelism — n ~ 10^4 protograph lifts — the
-structure gives a scatter-free formulation: every edge routes by a STATIC
+the ``model`` mesh axis, but routes messages with ``.at[].add``
+scatters.  For the codes that actually need model parallelism — n ~ 10^4
+protograph lifts — the structure gives a scatter-free formulation: every edge routes by a STATIC
 cyclic shift (``decoder/lifted_bp.py``), and a check-block partition keeps
 those shifts intact because circulant blocks never straddle shards.
 
@@ -17,8 +15,9 @@ two-level factorization of the routing:
    ``jnp.roll``s over the cyclic axis — compile-time constants, same on
    every device), then
 2. select/accumulate per-shard with a 0/1 routing tensor
-   ``route[e, J, s, i]`` contracted on the MXU (``einsum``) — the
-   per-device structure is DATA, not program.
+   ``route[e, J, s, i]`` contracted by ``einsum`` at HIGHEST precision (at
+   the default a GPU contracts float32 in TF32 and would round every
+   message) — the per-device structure is DATA, not program.
 
 ``var_to_edge`` selections are exact (each edge slot has exactly one
 nonzero route entry); ``edge_to_var`` partial sums are accumulated in
@@ -101,7 +100,7 @@ def lifted_sharded_bp_fn(
     (hard [B, n], llr [B, n], converged [B], iterations [B])``; pad the
     syndrome with zeros for the ``D*mpc - mp`` empty block-rows.
     """
-    from ..decoder.bp import normalize_bp_method
+    from ..decoder.bp import adaptive_alpha, normalize_bp_method
 
     method = normalize_bp_method(bp_method)
     lg = sgraph.lg
@@ -165,12 +164,14 @@ def lifted_sharded_bp_fn(
             return jnp.einsum(
                 "psi,plb->silb", route, rolled_stack(x),
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
 
         def edge_to_var(c2v):  # [wr, mpc, L, B] -> [np_, L, B] (psummed)
             contrib = jnp.einsum(
                 "psi,silb->plb", route, c2v,
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
             acc = jnp.stack([
                 sum(jnp.roll(contrib[p], e, axis=0) for (p, e) in grp)
@@ -184,6 +185,7 @@ def lifted_sharded_bp_fn(
             sel = jnp.einsum(
                 "psi,plb->silb", route, rolled,
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )  # exact: 0/1 selections, sums <= wr
             return jnp.sum(sel.astype(jnp.int32), axis=0) & 1
 
@@ -227,7 +229,7 @@ def lifted_sharded_bp_fn(
             it, v2c, hard_out, llr_out, iters, conv = state
             if method == "minimum_sum":
                 alpha = (
-                    1.0 - jnp.exp2(-it.astype(jnp.float32))
+                    adaptive_alpha(it)
                     if adaptive
                     else fixed_alpha
                 )

@@ -3,14 +3,14 @@
 The reference has no distributed capability at all — scale-out meant running
 independent seeded processes on an HPC cluster (SURVEY.md §2.3; reference
 ``css_decode_sim.py:51-52`` only mentions "disable tqdm on HPC").  Here
-scale-out is first-class and TPU-native:
+scale-out is first-class:
 
 - **Syndrome-batch data parallelism**: the batch axis of
   ``decode(syndromes[B, m])`` is sharded over a 1D/2D ``jax.sharding.Mesh``
-  with ``NamedSharding``; the BP inner loop then runs with *zero* cross-chip
-  traffic, and only the final statistics reduction crosses ICI (a psum of a
-  few scalars per batch).
-- **Multi-host**: the same code path scales over DCN via
+  with ``NamedSharding``; the BP inner loop then runs with *zero* cross-card
+  traffic, and only the final statistics reduction crosses NVLink (a psum
+  of a few scalars per batch).
+- **Multi-host**: the same code path scales across hosts via
   ``jax.distributed.initialize`` — the mesh just gets bigger.
 
 Edge-sharding of very large Tanner graphs (the "tensor parallel" analogue,
@@ -75,8 +75,7 @@ def sharded_decode_fn(
     channel prior to [B, n] at the caller).
 
     The graph layout and OSD candidate tables travel through jit as
-    replicated *arguments* — embedded constant arrays hang the TPU AOT
-    compiler (see TannerGraph docstring).
+    replicated *arguments* (see TannerGraph docstring).
     """
     from ..decoder.osd import build_osd_consts
 

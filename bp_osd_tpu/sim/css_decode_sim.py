@@ -1,6 +1,6 @@
 """Monte-Carlo BP+OSD decoding simulation for CSS codes.
 
-TPU-native re-design of the reference harness (reference
+Batched re-design of the reference harness (reference
 ``src/bposd/css_decode_sim.py:11-567``).  Same experiment, same config dict,
 same JSON output format — but the hot loop is *batched*: instead of one
 error/decode per iteration (reference ``css_decode_sim.py:519-520``) the
@@ -27,9 +27,9 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..codes.css import css_code
-from ..decoder.bp import bp_decode, llr_from_channel
-from ..decoder.osd import osd_decode
+from ..decoder.bp import llr_from_channel
 from ..decoder.tanner import TannerGraph
+from ..runtime import check_backend, sim_batch_cap
 
 try:
     from tqdm import tqdm
@@ -59,7 +59,6 @@ _DEFAULT_INPUT = {
     "error_bar_precision_cutoff": 1e-3,
     "batch_size": 0,  # 0 -> auto (new: decode batch per dispatch)
     "use_mesh": -1,  # -1 auto: shard batch over all devices when >1 (new)
-    "backend": "auto",  # new: xla | pallas | auto (pallas on single-chip TPU)
 }
 
 _OUTPUT_VALUES = {
@@ -106,6 +105,9 @@ class css_decode_sim:
     """
 
     def __init__(self, hx=None, hz=None, **input_dict):
+        # the removed backend option: refused if it asks for the removed
+        # Pallas kernels, dropped (not serialized) if it names the XLA path
+        check_backend(input_dict.pop("backend", None))
         for key, value in input_dict.items():
             self.__dict__[key] = value
         for key, value in _DEFAULT_INPUT.items():
@@ -197,22 +199,11 @@ class css_decode_sim:
         n_dev = len(jax.devices())
         if self.use_mesh == -1:
             self.use_mesh = 1 if n_dev > 1 else 0
-        on_tpu = jax.devices()[0].platform not in ("cpu",)
-        if self.backend == "auto":
-            # fused Pallas kernels on TPU, single-chip or mesh-sharded via
-            # shard_map; the XLA path covers CPU
-            self.backend = "pallas" if on_tpu else "xla"
-        # on CPU the Pallas kernels run in interpret mode (tests/dryrun of
-        # the sharded-pallas composition on the virtual device mesh)
-        self._pallas_interpret = self.backend == "pallas" and not on_tpu
         if self.batch_size == 0:
-            # auto: fill a useful dispatch without exhausting memory.  The
-            # TPU wants large batches (the flagship bench peaks at 16384
-            # per chip, bench.py/BENCH_r03.json; smaller dispatches leave
-            # throughput on the table — round-3 VERDICT weak item 6); CPU
-            # dispatches are latency-bound, so stay small there.
-            cap = 16384 if on_tpu else 1024
-            self.batch_size = int(min(max(self.target_runs, 1), cap))
+            # auto: fill a useful dispatch without exhausting memory
+            self.batch_size = int(min(max(self.target_runs, 1),
+                                      sim_batch_cap(self._graph_z,
+                                                    self._graph_x)))
         if self.use_mesh and self.batch_size % n_dev:
             # round up so the batch shards evenly over the mesh
             self.batch_size += n_dev - self.batch_size % n_dev
@@ -227,22 +218,12 @@ class css_decode_sim:
         )
 
         # all code matrices / channel vectors / graph layouts travel through
-        # jit as ARGUMENTS (embedded constant arrays hang the TPU AOT
-        # compiler — see TannerGraph docstring)
+        # jit as ARGUMENTS (see TannerGraph docstring)
         from ..decoder.osd import build_osd_consts
 
-        if self.backend == "pallas":
-            from ..ops.pallas_bp import build_bp_operators
-
-            bp_ops_z = build_bp_operators(self._graph_z)
-            bp_ops_x = build_bp_operators(self._graph_x)
-        else:
-            bp_ops_z = bp_ops_x = None
         self._sim_consts = {
             "graph_z": self._graph_z,
             "graph_x": self._graph_x,
-            "bp_ops_z": bp_ops_z,
-            "bp_ops_x": bp_ops_x,
             "osd_z": build_osd_consts(self._graph_z, self.osd_method, int(self.osd_order)),
             "osd_x": build_osd_consts(self._graph_x, self.osd_method, int(self.osd_order)),
             "hx": np.asarray(self.hx.toarray(), np.float32),
@@ -259,28 +240,20 @@ class css_decode_sim:
         N = self.N
 
         def mod2mul(a, M):
+            # 0/1 operands, integer sums < 2^24: exact at default (TF32)
+            # precision
             prod = jnp.matmul(
                 a.astype(jnp.float32), M.T, preferred_element_type=jnp.float32
             )
             return jnp.mod(prod, 2.0).astype(jnp.int32)
 
-        backend = self.backend
-        interpret = self._pallas_interpret
+        from ..decoder.pipeline import decode_pipeline
 
-        from ..decoder.pipeline import auto_stage_schedule, decode_pipeline
-
-        # multi-stage BP resume schedule derived from max_iter (the tuned
-        # flagship point (32, 96) -> 400; round-3 VERDICT weak item 2: the
-        # default single-stage cap left ~3x on the table at max_iter=400)
-        stage_caps = auto_stage_schedule(int(self.max_iter) or self.N)
-
-        def decode_side(graph, osd_consts, bp_ops, synd, channel_probs):
-            """Staged BP+OSD pipeline; returns (BpOsdBatch, osd0, osdw)."""
+        def decode_side(graph, osd_consts, synd, channel_probs):
+            """BP+OSD pipeline; returns (BpOsdBatch, osd0, osdw)."""
             llr0 = llr_from_channel(channel_probs)
             out = decode_pipeline(
-                graph, synd, llr0, consts=osd_consts, backend=backend,
-                bp_operators=bp_ops, interpret=interpret,
-                stage1_iters=stage_caps,
+                graph, synd, llr0, consts=osd_consts,
                 **bp_kwargs, **osd_kwargs,
             )
             return out, out.osd0.astype(jnp.int32), out.osdw.astype(jnp.int32)
@@ -296,7 +269,6 @@ class css_decode_sim:
 
         def batch_fn(keys, consts):
             graph_z, graph_x = consts["graph_z"], consts["graph_x"]
-            ops_z, ops_x = consts["bp_ops_z"], consts["bp_ops_x"]
             osd_z, osd_x = consts["osd_z"], consts["osd_x"]
             hx_d, hz_d = consts["hx"], consts["hz"]
             lx_d, lz_d = consts["lx"], consts["lz"]
@@ -313,16 +285,16 @@ class css_decode_sim:
             synd_x = mod2mul(error_x, hz_d)
 
             if channel_update is None:
-                bp_z, osd0_z, osdw_z = decode_side(graph_z, osd_z, ops_z, synd_z, pcz + pcy)
-                bp_x, osd0_x, osdw_x = decode_side(graph_x, osd_x, ops_x, synd_x, pcx + pcy)
+                bp_z, osd0_z, osdw_z = decode_side(graph_z, osd_z, synd_z, pcz + pcy)
+                bp_x, osd0_x, osdw_x = decode_side(graph_x, osd_x, synd_x, pcx + pcy)
             elif channel_update == "z->x":
-                bp_z, osd0_z, osdw_z = decode_side(graph_z, osd_z, ops_z, synd_z, pcz + pcy)
+                bp_z, osd0_z, osdw_z = decode_side(graph_z, osd_z, synd_z, pcz + pcy)
                 probs_x = bayes_update(osdw_z, pcz, pcx, pcy)
-                bp_x, osd0_x, osdw_x = decode_side(graph_x, osd_x, ops_x, synd_x, probs_x)
+                bp_x, osd0_x, osdw_x = decode_side(graph_x, osd_x, synd_x, probs_x)
             elif channel_update == "x->z":
-                bp_x, osd0_x, osdw_x = decode_side(graph_x, osd_x, ops_x, synd_x, pcx + pcy)
+                bp_x, osd0_x, osdw_x = decode_side(graph_x, osd_x, synd_x, pcx + pcy)
                 probs_z = bayes_update(osdw_x, pcx, pcz, pcy)
-                bp_z, osd0_z, osdw_z = decode_side(graph_z, osd_z, ops_z, synd_z, probs_z)
+                bp_z, osd0_z, osdw_z = decode_side(graph_z, osd_z, synd_z, probs_z)
             else:
                 raise ValueError(
                     f"channel_update must be None, 'x->z' or 'z->x', "
@@ -393,20 +365,12 @@ class css_decode_sim:
             self._mesh = make_mesh()
             batch_shard = NamedSharding(self._mesh, P("data"))
             self._batch_shard = batch_shard
-            if backend == "pallas":
-                # shard_map: each device runs the full per-shard Pallas
-                # pipeline; outcomes stay sharded on the batch axis, so no
-                # collectives are needed inside the decode
-                from ..parallel.shard_pallas import shard_batch_fn
-
-                self._batch_jit = shard_batch_fn(batch_fn, self._mesh)
-            else:
-                replicated = jax.tree_util.tree_map(
-                    lambda _: NamedSharding(self._mesh, P()), self._sim_consts
-                )
-                self._batch_jit = jax.jit(
-                    batch_fn, in_shardings=(batch_shard, replicated)
-                )
+            replicated = jax.tree_util.tree_map(
+                lambda _: NamedSharding(self._mesh, P()), self._sim_consts
+            )
+            self._batch_jit = jax.jit(
+                batch_fn, in_shardings=(batch_shard, replicated)
+            )
         else:
             self._batch_jit = jax.jit(batch_fn)
 

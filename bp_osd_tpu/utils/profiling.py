@@ -16,7 +16,7 @@ __all__ = ["trace", "Timer", "block"]
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/bp_osd_tpu_trace"):
+def trace(log_dir: str):
     """Capture a device trace of the enclosed block.
 
     View with ``tensorboard --logdir <log_dir>`` (profile plugin) or load

@@ -9,7 +9,7 @@ Z-biased, adaptive min-sum, osd_cs order 42, max_iter = 0 -> N) on both
 codes and writes ``hgp_625_decode_results.json`` /
 ``hgp_900_decode_results.json`` next to the flagship artifact.
 
-Run on TPU from the repo root:
+Run on a GPU from the repo root:
 ``python examples/large_hgp_ler.py [runs] [625|900|both]``.
 """
 
@@ -20,18 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
-    import jax
-
-    cache_dir = os.path.expanduser("~/.cache/jax_comp_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    except Exception:
-        pass
-
     from bp_osd_tpu.codes import hgp, mkmn_20_5_8, mkmn_24_6_10
+    from bp_osd_tpu.runtime import enable_compile_cache
     from bp_osd_tpu.sim import css_decode_sim
+
+    enable_compile_cache()
 
     runs = int(sys.argv[1]) if len(sys.argv) > 1 else 10000
     which = sys.argv[2] if len(sys.argv) > 2 else "both"

@@ -1,14 +1,14 @@
 """OSDW logical-error-rate artifact at lifted-product scale (n = 10^4).
 
-The parallel layer and the streamed OSD kernel exist for this code class
-(BASELINE.md row 5's [[10000,420]] (3,4)-regular lifted product,
-arXiv:2005.07016's family); this script produces the first end-to-end
-ACCURACY datapoints for it: Z-biased errors (the flagship artifact's
-convention), shift-routed lifted BP (``decoder/lifted_bp.py``) + the
-per-sample streamed Pallas OSD on the failure tail, logical checks
-against the code's computed lx basis, at several physical error rates.
+The parallel layer exists for this code class (BASELINE.md row 5's
+[[10000,420]] (3,4)-regular lifted product, arXiv:2005.07016's family);
+this script produces end-to-end ACCURACY datapoints for it: Z-biased
+errors (the flagship artifact's convention), shift-routed lifted BP
+(``decoder/lifted_bp.py``) + OSD on the failure tail in buckets of
+``OSD_BUCKET``, logical checks against the code's computed lx basis, at
+several physical error rates.
 
-Writes ``examples/lifted_product_decode_results.json``.  Run on TPU from
+Writes ``examples/lifted_product_decode_results.json``.  Run on a GPU from
 the repo root: ``python examples/lifted_product_ler.py [runs_per_point]``.
 """
 
@@ -37,21 +37,15 @@ SEED = 42
 
 def main():
     import jax
-
-    cache_dir = os.path.expanduser("~/.cache/jax_comp_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    except Exception:
-        pass
-
     import jax.numpy as jnp
 
     from bp_osd_tpu.codes import lifted_hgp
     from bp_osd_tpu.decoder import TannerGraph, llr_from_channel, osd_decode
     from bp_osd_tpu.decoder.lifted_bp import LiftedGraph, bp_decode_lifted
     from bp_osd_tpu.decoder.osd import build_osd_consts
+    from bp_osd_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     runs = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     steps = max(runs // B, 1)
@@ -69,8 +63,6 @@ def main():
     graph = jax.device_put(TannerGraph(H))
     lgraph = LiftedGraph(qcode.hx_proto, LIFT)
     consts = jax.device_put(build_osd_consts(graph, "osd_cs", OSD_ORDER))
-    on_tpu = jax.devices()[0].platform != "cpu"
-    backend = "pallas" if on_tpu else "xla"
     lx_dev = jax.device_put(lx.astype(np.float32))
 
     bp_jit = jax.jit(lambda s, l: bp_decode_lifted(
@@ -78,8 +70,7 @@ def main():
         ms_scaling_factor=0.625))
     osd_jit = jax.jit(lambda g, synd, llr, idx, skip, c: osd_decode(
         g, jnp.take(synd, idx, axis=0), jnp.take(llr, idx, axis=0),
-        osd_method="osd_cs", osd_order=OSD_ORDER, consts=c,
-        backend=backend, skip=skip))
+        osd_method="osd_cs", osd_order=OSD_ORDER, consts=c, skip=skip))
     # logical check on device: residual anticommutes with any lx row
     logfail_jit = jax.jit(lambda e, corr: jnp.any(
         jnp.mod(jnp.dot((e ^ corr).astype(jnp.float32), lx_dev.T,

@@ -3,7 +3,7 @@
 Each process owns 2 virtual CPU devices; together they form a 4-device
 global mesh.  The worker decodes its host slice of a globally-sharded
 syndrome batch and cross-host-reduces the per-sample success count — the
-TPU-native replacement for the reference's "independent seeded processes
+replacement for the reference's "independent seeded processes
 on an HPC cluster" pattern (SURVEY.md §2.3).
 """
 

@@ -6,9 +6,8 @@ across rounds with only a prose tie-flip explanation).  It holds 512
 seeded syndromes of the [[400,16,6]] reference workload plus the XLA-path
 osdw decodings and their weights, produced ON CPU so the file is
 reproducible in CI.  ``tests/test_corpus.py`` re-decodes and asserts
-bit-equality; ``bench.py``'s on-chip gate separately pins compiled Pallas
-to XLA per-row (equal weight + syndrome-satisfying on every divergent
-row), so the chain corpus -> XLA -> Pallas covers every kernel generation.
+bit-equality on the CPU; ``chip_smoke.py`` and ``tests/test_gpu.py``
+re-decode it on the GPU, where it must match bit for bit too.
 
 Run from the repo root: ``JAX_PLATFORMS=cpu python tests/make_flagship_corpus.py``
 (only needed when the decode SEMANTICS intentionally change — any

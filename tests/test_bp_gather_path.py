@@ -1,13 +1,9 @@
 """BP gather-path vs matmul-path equivalence.
 
-``bp_decode`` rides the MXU via one-hot routing operators when the graph
-is small (``TannerGraph.edge_var_onehot``), and falls back to the
-gather/segment-sum formulation for large graphs — the path a non-lifted
-n ~ 10^4 code would take through ``BpDecoder``.  The fallback was never
-cross-checked against the matmul path (round-4 gap): same graphs, same
-syndromes, both paths, compared here under the repo's float standard
-(hard/converge/iteration exact on these sizes, llr to reduction-order
-tolerance).
+``bp_decode`` selects variable->edge messages with one-hot matmuls when
+the graph is small (``TannerGraph.edge_var_onehot``), and with gathers for
+large graphs — the path a non-lifted n ~ 10^4 code would take through
+``BpDecoder``.  Same graphs, same syndromes, both paths, compared here.
 """
 
 import numpy as np
@@ -59,3 +55,46 @@ def test_gather_path_matches_matmul_path(seed, bp_method):
     assert np.array_equal(np.sign(llr[confident]),
                           np.sign(llr_ref[confident]))
     assert np.allclose(llr, llr_ref, atol=1e-3)
+
+
+def _code(name):
+    from bp_osd_tpu.codes import hamming_code, hgp, mkmn_16_4_6, rep_code
+
+    if name == "hamming":
+        return hamming_code(3).toarray()
+    if name == "flagship":
+        return hgp(mkmn_16_4_6()).hx.toarray()
+    d = int(name[-1])
+    return hgp(rep_code(d), rep_code(d)).hz.toarray()
+
+
+@pytest.mark.parametrize("method", ["ms_adaptive", "ms_0.625", "ps"])
+@pytest.mark.parametrize("code", ["surface_d3", "surface_d5", "flagship",
+                                  "hamming"])
+def test_gather_path_matches_matmul_path_on_codes(code, method):
+    """The repo's codes and BP methods: the one-hot routing (a float32
+    matmul at HIGHEST precision) and the gather routing give the same
+    floats.  Each variable's messages are summed in one fixed order on
+    both routings (``bp_decode``'s ``per_variable_total``), and selection
+    through a one-hot matrix is exact, so equality is bit for bit."""
+    H = np.asarray(_code(code), np.uint8)
+    graph = TannerGraph(H)
+    assert graph.edge_var_onehot is not None
+    bp_method, alpha = {"ms_adaptive": ("minimum_sum", 0.0),
+                        "ms_0.625": ("minimum_sum", 0.625),
+                        "ps": ("product_sum", 1.0)}[method]
+    r = np.random.default_rng(sum(map(ord, code + method)))
+    B, p = 32, 0.06
+    errors = (r.random((B, graph.n)) < p).astype(np.uint8)
+    synd = (errors @ H.T % 2).astype(np.uint8)
+    llr0 = np.asarray(llr_from_channel(np.full(graph.n, p)))
+    kw = dict(bp_method=bp_method, max_iter=32, ms_scaling_factor=alpha)
+
+    ref = bp_decode(graph, synd, llr0, **kw)
+    graph.edge_var_onehot = None
+    out = bp_decode(graph, synd, llr0, **kw)
+
+    for name in ("converged", "iterations", "hard", "llr"):
+        np.testing.assert_array_equal(np.asarray(getattr(out, name)),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)

@@ -2,18 +2,16 @@
 
 ``bp_osd_tpu/native/cpu_baseline.cpp`` implements the same decode semantics
 (min-sum BP with adaptive scaling, osd_cs combination sweep — reference
-``README.md:184-187``) as the TPU path, serially in C++.  Decoding identical
+``README.md:184-187``) as the JAX path, serially in C++.  Decoding identical
 syndromes through both and comparing is a strong end-to-end check: it caught
 a real bug where backend bf16 matmul precision silently corrupted the
 reduced T-column extraction (``decoder/osd.py:_extract_t_columns``).
 
-Bit-for-bit equality is asserted on the d=3 surface code (small enough that
-float tie-order differences between the two BP implementations never flip a
-reliability comparison in practice).  On the [[400,16,6]] flagship, BP float
-sums differ in accumulation order, so ties in the reliability sort can
-resolve differently; there the test asserts the invariants that survive
-tie-reordering: every decoding satisfies its syndrome, and candidate weights
-match sample-by-sample.
+Min-sum BP is piecewise linear, and the JAX path sums each variable's
+messages in the C++ order, so min-sum decodings are asserted bit for bit,
+on the d=3 surface code and on the [[400,16,6]] flagship at 400
+iterations.  Product-sum goes through two libms' tanh/atanh and is checked
+for validity and near-universal agreement.
 """
 
 import os
@@ -100,7 +98,7 @@ def _case(H, p, B, max_iter, osd_order, seed, **kw):
     return synd, native, ours
 
 
-# the full native-vs-TPU method matrix (round-3 VERDICT weak item 4: the
+# the full native-vs-JAX method matrix (round-3 VERDICT weak item 4: the
 # serial cross-check covered only adaptive min-sum + osd_cs).  min-sum is
 # piecewise-linear, so identical inputs give identical floats and the
 # comparison is bit-for-bit; product-sum is checked separately below
@@ -156,21 +154,14 @@ def test_received_vector_bit_for_bit():
 
 
 def test_flagship_validity_and_weight_parity():
+    """400 iterations of adaptive min-sum on the flagship, where BP is
+    most sensitive to rounding: the JAX path sums each variable's messages
+    in the serial baseline's order and rounds every check message, so the
+    decodings are bit-identical, not just equally valid."""
     H = np.asarray(hgp(mkmn_16_4_6()).hx.toarray(), np.uint8)
     synd, native, ours = _case(H, 0.05, 64, 0, 42, seed=2)
     # every decoding from BOTH decoders must satisfy its syndrome
     assert ((native @ H.T % 2) == synd).all()
     assert ((ours @ H.T % 2) == synd).all()
-    # candidate weights agree except where float tie-ordering diverged;
-    # demand a large majority of exact bit matches and near-universal
-    # weight agreement
     bitmatch = (native == ours).all(axis=1)
-    assert bitmatch.mean() >= 0.75, f"bitmatch only {bitmatch.mean():.2f}"
-    w_native = native.sum(axis=1)
-    w_ours = ours.sum(axis=1)
-    assert (w_native == w_ours).mean() >= 0.75
-    # neither side may be systematically heavier
-    assert abs(int(w_ours.sum()) - int(w_native.sum())) <= B_TOL
-
-
-B_TOL = 12  # total-weight slack over 64 samples (tie flips of weight +-1)
+    assert bitmatch.all(), f"bitmatch only {bitmatch.mean():.2f}"

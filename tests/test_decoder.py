@@ -241,71 +241,6 @@ def test_bp_decoder_standalone():
     assert bpd.converge == 1
 
 
-def test_pallas_backend_matches_xla_through_decoder():
-    """backend='pallas' end-to-end through BpOsdDecoder (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    surface = hgp(rep_code(3), rep_code(3))
-    H = surface.hz.toarray()
-    kwargs = dict(error_rate=0.05, max_iter=13, bp_method="ms",
-                  ms_scaling_factor=0.625, osd_method="osd_cs", osd_order=4)
-    ref = BpOsdDecoder(H, backend="xla", **kwargs)
-    pal = BpOsdDecoder(H, backend="pallas", **kwargs)
-    B = 8
-    errors = (RNG.random((B, 13)) < 0.1).astype(np.uint8)
-    synds = (errors @ H.T) % 2
-    out_ref = ref.decode_batch(synds).copy()
-    with pltpu.force_tpu_interpret_mode():
-        out_pal = pal.decode_batch(synds).copy()
-    assert np.array_equal(out_ref, out_pal)
-    assert np.array_equal(ref.converge_batch, pal.converge_batch)
-    assert np.array_equal(ref.osd0_decoding_batch, pal.osd0_decoding_batch)
-
-
-def test_decoder_class_routes_through_pipeline():
-    """The drop-in class must BE the staged pipeline bit-for-bit (round-3
-    VERDICT weak item 2: the class used to run straight max_iter BP and
-    pay ~3x at the flagship's max_iter=400)."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
-
-    from bp_osd_tpu.decoder import llr_from_channel
-    from bp_osd_tpu.decoder.osd import build_osd_consts
-    from bp_osd_tpu.decoder.pipeline import (auto_stage_schedule,
-                                             decode_pipeline)
-    from bp_osd_tpu.ops.pallas_bp import build_bp_operators
-
-    surface = hgp(rep_code(4), rep_code(4))
-    H = surface.hx.toarray()
-    max_iter = 25
-    kwargs = dict(error_rate=0.06, max_iter=max_iter, bp_method="ms",
-                  ms_scaling_factor=0.0, osd_method="osd_cs", osd_order=5)
-    dec = BpOsdDecoder(H, backend="pallas", **kwargs)
-    B = 12
-    errors = (RNG.random((B, H.shape[1])) < 0.08).astype(np.uint8)
-    synds = (errors @ H.T) % 2
-
-    graph = TannerGraph(H)
-    ops = build_bp_operators(graph)
-    consts = build_osd_consts(graph, "osd_cs", 5)
-    llr0 = llr_from_channel(np.full(H.shape[1], 0.06))
-    with pltpu.force_tpu_interpret_mode():
-        out = dec.decode_batch(synds).copy()
-        pipe = decode_pipeline(
-            graph, synds, llr0, bp_method="minimum_sum", max_iter=max_iter,
-            ms_scaling_factor=0.0, osd_method="osd_cs", osd_order=5,
-            consts=consts, backend="pallas", bp_operators=ops,
-            stage1_iters=auto_stage_schedule(max_iter),
-        )
-    assert np.array_equal(out, np.asarray(pipe.osdw))
-    assert np.array_equal(dec.osd0_decoding_batch, np.asarray(pipe.osd0))
-    assert np.array_equal(dec.bp_decoding_batch, np.asarray(pipe.bp_hard))
-    assert np.array_equal(dec.converge_batch, np.asarray(pipe.converged))
-    assert np.array_equal(dec.iter_batch, np.asarray(pipe.iterations))
-    np.testing.assert_allclose(dec.log_prob_ratios_batch,
-                               np.asarray(pipe.llr))
-
-
 def test_decode_batch_device_outputs():
     """outputs='device' + device-array syndromes must match the host path
     bit-for-bit (the bench_api.py measurement mode)."""
@@ -350,21 +285,56 @@ def test_compact_osd_matches_fused_path():
 
 
 def test_backend_auto_selection(monkeypatch):
-    """backend='auto' (the default) must resolve to the Pallas fast path
-    on TPU and the XLA path on CPU — a reference user porting
-    ``BpOsdDecoder(H, ...)`` verbatim lands on the measured fast path
-    without knowing the knob exists (round-4 VERDICT weak item 4)."""
+    """There is one decode path; the platform only sets the dispatch
+    defaults.  ``backend`` values naming that path still construct, and a
+    fake GPU device switches both defaults to the accelerator sizes."""
     import jax
+
+    from bp_osd_tpu import runtime
 
     H = hgp(rep_code(3), rep_code(3)).hz.toarray()
     kwargs = dict(error_rate=0.05, max_iter=10, osd_method="osd_cs",
                   osd_order=2)
-    assert BpOsdDecoder(H, **kwargs).backend == "xla"  # conftest pins CPU
+    for backend in ("auto", "xla"):
+        assert not hasattr(BpOsdDecoder(H, backend=backend, **kwargs),
+                           "backend")
+    from bp_osd_tpu.codes import hgp as _hgp, mkmn_16_4_6
 
-    class FakeTpu:
-        platform = "tpu"
+    small = TannerGraph(H)
+    flagship = TannerGraph(_hgp(mkmn_16_4_6()).hx.toarray())
+    big = TannerGraph(H)  # a [[10000,420]]-sized OSD working set, by shape
+    big.n, big.rank = 10000, 4790
+    assert runtime.decode_chunk_default(small) == 4096  # conftest pins CPU
+    assert runtime.sim_batch_cap(small, flagship) == 1024
+    assert runtime.decode_chunk_default(big) == 43  # memory-capped
 
-    monkeypatch.setattr(jax, "devices", lambda *a, **k: [FakeTpu()])
-    dec = BpOsdDecoder(H, **kwargs)
-    assert dec.backend == "pallas"
-    assert dec._bp_operators is not None  # fast path fully provisioned
+    class FakeGpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [FakeGpu()])
+    assert runtime.decode_chunk_default(flagship) == 16384
+    assert runtime.sim_batch_cap(small, flagship) == 16384
+    assert runtime.decode_chunk_default(big) == 43
+    assert runtime.sim_batch_cap(small, big) == 43
+
+
+def test_osd_decode_skip_parity():
+    """osd_decode(skip=conv) equals the unskipped decode on live samples."""
+    import jax.numpy as jnp
+
+    from bp_osd_tpu.decoder.osd import build_osd_consts
+
+    H = hgp(rep_code(4), rep_code(4)).hz.toarray()
+    g = TannerGraph(H)
+    consts = build_osd_consts(g, "osd_cs", 4)
+    B = 16
+    errors = (RNG.random((B, g.n)) < 0.08).astype(np.uint8)
+    synd = (errors @ H.T % 2).astype(np.int32)
+    llr = RNG.normal(0, 1, (B, g.n)).astype(np.float32)
+    skip = (RNG.random(B) < 0.4)
+    live = ~skip
+    kw = dict(osd_method="osd_cs", osd_order=4, consts=consts)
+    ref = osd_decode(g, synd, llr, **kw)
+    out = osd_decode(g, synd, llr, skip=jnp.asarray(skip), **kw)
+    assert np.array_equal(np.asarray(ref.osd0)[live], np.asarray(out.osd0)[live])
+    assert np.array_equal(np.asarray(ref.osdw)[live], np.asarray(out.osdw)[live])

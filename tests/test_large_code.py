@@ -2,7 +2,7 @@
 
 Covers the BASELINE.md row-5 decode PATH (correctness on the virtual 2D
 mesh at a CPU-tractable size); the n ~ 10^4 throughput number comes from
-``bench_large.py`` on TPU hardware.
+``bench_large.py`` on the GPU.
 """
 
 import jax
@@ -63,50 +63,3 @@ def test_lifted_product_edge_sharded_bposd_matches_dense():
     exact = (osdw == expect).all(axis=1)
     assert exact.mean() >= 0.9, f"only {exact.sum()}/{B} exact vs dense"
     assert (osdw.sum(axis=1) <= expect.sum(axis=1) + 1).all()
-
-
-def test_edge_sharded_bposd_pallas_osd_routes_streamed(monkeypatch):
-    """osd_backend='pallas' must take the Pallas OSD route inside the
-    shard_map'd gather-to-DP stage — and specifically the per-sample
-    STREAMED kernel when the fused kernel's VMEM gate fails (round-4
-    VERDICT weak item 2: the stage silently used the batch-dense XLA
-    elimination the streamed kernel was built to replace)."""
-    import bp_osd_tpu.ops.pallas_osd as fused_mod
-    import bp_osd_tpu.ops.pallas_osd_large as large_mod
-
-    calls = []
-    orig = large_mod.osd_cs_large_pallas
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    monkeypatch.setattr(fused_mod, "fused_osd_fits", lambda *a, **k: False)
-    monkeypatch.setattr(large_mod, "osd_cs_large_pallas", spy)
-
-    qcode = lifted_hgp(PROTO, lift=24)
-    H = np.asarray(qcode.hx.toarray(), np.uint8)
-    m, n = H.shape
-    devs = np.asarray(jax.devices()[:8]).reshape(4, 2)
-    mesh = Mesh(devs, ("data", "model"))
-    sg = ShardedTannerGraph(H, n_shards=2)
-    kwargs = dict(bp_method="minimum_sum", max_iter=8,
-                  ms_scaling_factor=0.625, osd_method="osd_cs", osd_order=3)
-    decode = edge_sharded_bposd_fn(sg, mesh, osd_backend="pallas", **kwargs)
-    decode_xla = edge_sharded_bposd_fn(sg, mesh, osd_backend="xla", **kwargs)
-
-    B = 16
-    rng = np.random.default_rng(7)
-    errors = (rng.random((B, n)) < 0.05).astype(np.uint8)
-    synds = ((errors @ H.T) % 2).astype(np.uint8)
-    pad = sg.n_shards * sg.m_chunk - m
-    synds_pad = np.pad(synds, ((0, 0), (0, pad)))
-    llr0 = np.broadcast_to(
-        np.asarray(llr_from_channel(np.full(n, 0.05))), (B, n)
-    ).copy()
-
-    osdw, conv = decode(synds_pad, llr0)
-    assert calls, "streamed kernel was not routed to"
-    ref_osdw, ref_conv = decode_xla(synds_pad, llr0)
-    np.testing.assert_array_equal(np.asarray(conv), np.asarray(ref_conv))
-    np.testing.assert_array_equal(np.asarray(osdw), np.asarray(ref_osdw))

@@ -116,7 +116,7 @@ def test_lifted_bp_shard_map_batch_dp():
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     L = 8
     qcode = lifted_hgp(PROTO, lift=L)
@@ -140,7 +140,7 @@ def test_lifted_bp_shard_map_batch_dp():
         step, mesh=mesh,
         in_specs=(P("data"), P("data")),
         out_specs=(P("data"), P("data")),
-        check_rep=False,
+        check_vma=False,
     )
     hs, cs = jax.jit(sharded)(synds, llr0)
     hu, cu = step(synds, llr0)

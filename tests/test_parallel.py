@@ -74,3 +74,38 @@ def test_sharded_decode_flagship_code_compiles():
     osdw, _, _, _ = decode(synds, llr0)
     osdw = np.asarray(osdw)
     assert np.array_equal((osdw @ g.H.T) % 2, synds)
+
+
+@pytest.mark.parametrize("osd_method,order", [("osd0", 0), ("osd_e", 6),
+                                              ("osd_cs", 7)])
+def test_sharded_decode_matches_unsharded(osd_method, order):
+    """sharded_decode_fn over the 8 virtual devices gives the unsharded
+    decode bit for bit, for every OSD method: per-sample arithmetic does
+    not depend on how the batch is split."""
+    qcode = hgp(rep_code(5), rep_code(5))
+    H = qcode.hz.toarray()
+    g = TannerGraph(H)
+    kw = dict(bp_method="ms", max_iter=25, ms_scaling_factor=0.0)
+    decode = sharded_decode_fn(g, make_mesh(8), osd_method=osd_method,
+                               osd_order=order, **kw)
+    B = 64
+    errors = (RNG.random((B, g.n)) < 0.1).astype(np.uint8)
+    synds = (errors @ H.T) % 2
+    llr0 = np.broadcast_to(
+        np.asarray(llr_from_channel(np.full(g.n, 0.1))), (B, g.n)
+    ).copy()
+    osdw, osd0, hard, conv = decode(synds, llr0)
+
+    bp = bp_decode(g, synds, llr0, **kw)
+    osd = osd_decode(g, synds, bp.llr, osd_method=osd_method,
+                     osd_order=order)
+    keep = np.asarray(bp.converged)[:, None]
+    np.testing.assert_array_equal(np.asarray(conv), np.asarray(bp.converged))
+    np.testing.assert_array_equal(np.asarray(hard), np.asarray(bp.hard))
+    np.testing.assert_array_equal(
+        np.asarray(osdw), np.where(keep, np.asarray(bp.hard),
+                                   np.asarray(osd.osdw)))
+    np.testing.assert_array_equal(
+        np.asarray(osd0), np.where(keep, np.asarray(bp.hard),
+                                   np.asarray(osd.osd0)))
+    assert (~np.asarray(conv)).any()  # OSD really ran on some rows
